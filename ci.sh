@@ -10,7 +10,7 @@
 set -euo pipefail
 cd "$(dirname "$0")"
 
-python -m compileall -q exastencils_tpu bench.py __graft_entry__.py
+python -m compileall -q exastencils_jax bench.py chip_smoke.py __graft_entry__.py
 
 case "${1:-quick}" in
     nightly) python -m pytest tests -q ;;

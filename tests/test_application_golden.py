@@ -19,10 +19,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # capstone runs: full-tier only
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl.parser import parse_l4
 
 
 def _run(reference_root, name):
@@ -79,10 +79,10 @@ def test_exafluids_tracks_golden(reference_root, tmp_path):
         "jax.config.update('jax_platforms', 'cpu')\n"
         "jax.config.update('jax_enable_x64', True)\n"
         f"sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})\n"
-        "from exastencils_tpu.config import Knowledge\n"
-        "from exastencils_tpu.config.parser import parse_config_file\n"
-        "from exastencils_tpu.dsl.interpreter import L4Executable\n"
-        "from exastencils_tpu.dsl.parser import parse_l4\n"
+        "from exastencils_jax.config import Knowledge\n"
+        "from exastencils_jax.config.parser import parse_config_file\n"
+        "from exastencils_jax.dsl.interpreter import L4Executable\n"
+        "from exastencils_jax.dsl.parser import parse_l4\n"
         f"base = {os.path.join(reference_root, 'Testing', 'Application', 'ExaFluids')!r}\n"
         "k = Knowledge(); parse_config_file(base + '.knowledge', k); k.update()\n"
         "prog = parse_l4(base + '.exa4')\n"

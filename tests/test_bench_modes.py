@@ -1,6 +1,8 @@
 """Benchmark-harness modes (reference Benchmark/run_benchmark.py +
 ConfigRunner sweeps): the sweep driver and the reference-program bench
-runners must produce well-formed one-line-JSON results on the CPU rig."""
+runners must produce well-formed one-line-JSON results.  bench.py runs
+on the GPU only, so these run on the card, in a child process that takes
+a tenth of its memory (the test process may hold the rest)."""
 
 import json
 import os
@@ -12,10 +14,20 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+pytestmark = [pytest.mark.slow, pytest.mark.gpu]
+
+
+@pytest.fixture
+def gpu_platform():
+    """Decided from the environment, without starting JAX here."""
+    if os.environ.get("JAX_PLATFORMS") not in ("cuda", "gpu"):
+        pytest.skip("bench.py runs on the GPU only (JAX_PLATFORMS=cuda)")
+
+
 def _run_bench(args, timeout=900):
     env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
     env["BENCH_ITERS"] = "2"
+    env["XLA_PYTHON_CLIENT_MEM_FRACTION"] = "0.1"
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py"), *args],
         capture_output=True, text=True, timeout=timeout, env=env,
@@ -25,8 +37,7 @@ def _run_bench(args, timeout=900):
     return [json.loads(l) for l in lines]
 
 
-@pytest.mark.slow
-def test_sweep_matrix():
+def test_sweep_matrix(gpu_platform):
     """ConfigRunner-lite: one JSON line per configuration, with the
     config echoed and the smoother axis actually reaching the solver."""
     rows = _run_bench(["--sweep", "level=5", "smoother=Jac,RBGS"])
@@ -39,12 +50,12 @@ def test_sweep_matrix():
     assert dr < dj < 0.4
     for r in rows:
         assert r["unit"] == "GLUP/s" and r["value"] > 0
+        assert r["device"]["platform"] == "gpu"
 
 
-@pytest.mark.slow
-def test_fivepoint_problem():
+def test_fivepoint_problem(gpu_platform, reference_root):
     """The FivePointStencil reference benchmark runs end to end from its
-    unmodified inputs (reduced level on the CPU rig)."""
+    unmodified inputs (reduced level)."""
     rows = _run_bench(["--problem", "fivepoint", "--max-level", "7",
                        "--iters", "3"])
     assert len(rows) == 1

@@ -26,11 +26,11 @@ pytestmark = pytest.mark.slow  # full-tier only (ci.sh quick gate skips)
 
 import jax
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl.parser import parse_l4
-from exastencils_tpu.parallel.dslsharding import build_dsl_mesh
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl.parser import parse_l4
+from exastencils_jax.parallel.dslsharding import build_dsl_mesh
 
 GOLDEN_CASES = ["2D", "PureMPI", "ComplexNumbers", "Summarize",
                 # 27-fragment 192^3 multigrid (~2 min CPU f64)
@@ -44,7 +44,7 @@ HUGE_GOLDEN_CASES = ["Strategy26", "Strategy26Cell", "HybridCell"]
 def _run(base, mesh=None, shard=True, capture_hlo=False, decomp=None):
     k = Knowledge()
     parse_config_file(base + ".knowledge", k)
-    k.tpu_coarse_replicate_threshold = 4
+    k.coarse_replicate_threshold = 4
     if decomp is not None:
         # shrink the block decomposition (grid = blocks*frags*2^level per
         # dim) to fit the CPU test budget; the program's level structure
@@ -55,7 +55,7 @@ def _run(base, mesh=None, shard=True, capture_hlo=False, decomp=None):
         k.domain_numBlocks = int(np.prod(decomp))
         k.domain_numFragmentsPerBlock = 1
     if not shard:
-        k.tpu_shard_dsl = False
+        k.shard_dsl = False
     k.update()
     if shard and mesh is None:
         mesh = build_dsl_mesh(k, k.dimensionality)

@@ -11,9 +11,9 @@ import pytest
 
 pytestmark = pytest.mark.slow  # full-tier only (ci.sh quick gate skips)
 
-from exastencils_tpu.config import Knowledge, parse_config_file
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_jax.config import Knowledge, parse_config_file
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl.parser import parse_l4
 
 
 def run_example(reference_root, rel, exa, max_level, min_level=2):

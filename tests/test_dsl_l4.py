@@ -6,11 +6,11 @@ import os
 
 import pytest
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.dsl.parser import parse_l4
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl import nodes as N
-from exastencils_tpu.models.poisson import PoissonMGSolver
+from exastencils_jax.config import Knowledge
+from exastencils_jax.dsl.parser import parse_l4
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl import nodes as N
+from exastencils_jax.models.poisson import PoissonMGSolver
 
 EXA4 = "/root/reference/Examples/Poisson/2D_FD_Poisson_fromL4.exa4"
 

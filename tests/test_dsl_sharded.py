@@ -21,11 +21,11 @@ pytestmark = pytest.mark.slow  # full-tier only (ci.sh quick gate skips)
 import jax
 from jax.sharding import Mesh
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl.driver import build_program
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl.driver import build_program
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl.parser import parse_l4
 
 
 def _program(base, k):
@@ -57,7 +57,7 @@ def test_sharded_dsl_golden(suite, name, mesh_shape, reference_root):
     parse_config_file(base + ".knowledge", k)
     # shard even the small test grids (default threshold targets
     # production sizes)
-    k.tpu_coarse_replicate_threshold = 4
+    k.coarse_replicate_threshold = 4
     k.update()
     prog = _program(base, k)
     lines = []
@@ -102,9 +102,9 @@ def test_sharded_vs_dense_bitwise(suite, name, reference_root):
     def run(mesh):
         k = Knowledge()
         parse_config_file(base + ".knowledge", k)
-        k.tpu_coarse_replicate_threshold = 4
+        k.coarse_replicate_threshold = 4
         if mesh is None:
-            k.tpu_shard_dsl = False
+            k.shard_dsl = False
         k.update()
         prog = _program(base, k)
         lines = []

@@ -23,13 +23,13 @@ import os
 import numpy as np
 import pytest
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.dsl import nodes as N
-from exastencils_tpu.dsl.driver import build_program, load_settings, run_config
-from exastencils_tpu.dsl.interpreter import Frame, L4Executable
-from exastencils_tpu.dsl.l1 import L1Parser, discretize_operator, parse_l1_file
-from exastencils_tpu.dsl.l2 import parse_l2
-from exastencils_tpu.dsl.l3 import lower_l3, parse_l3
+from exastencils_jax.config import Knowledge
+from exastencils_jax.dsl import nodes as N
+from exastencils_jax.dsl.driver import build_program, load_settings, run_config
+from exastencils_jax.dsl.interpreter import Frame, L4Executable
+from exastencils_jax.dsl.l1 import L1Parser, discretize_operator, parse_l1_file
+from exastencils_jax.dsl.l2 import parse_l2
+from exastencils_jax.dsl.l3 import lower_l3, parse_l3
 
 TESTING = "/root/reference/Testing/Poisson"
 EXAMPLES = "/root/reference/Examples/Poisson"

@@ -16,10 +16,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # example capstones: full tier
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl.driver import build_program
-from exastencils_tpu.dsl.interpreter import L4Executable
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl.driver import build_program
+from exastencils_jax.dsl.interpreter import L4Executable
 
 EXAMPLES = "/root/reference/Examples"
 

@@ -7,14 +7,21 @@ import dataclasses
 import pathlib
 import re
 
-from exastencils_tpu.config.knowledge import ACCEPTED_COMPAT_FLAGS, Knowledge
+import pytest
+
+from exastencils_jax.config.knowledge import (
+    ACCEPTED_COMPAT_FLAGS,
+    RENAMED_OPTIONS,
+    Knowledge,
+)
+from exastencils_jax.config.parser import parse_config_text
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _corpus():
     texts = []
-    for sub in ("exastencils_tpu", "tests"):
+    for sub in ("exastencils_jax", "tests"):
         for p in (REPO / sub).rglob("*.py"):
             texts.append((p, p.read_text()))
     for extra in ("bench.py", "__graft_entry__.py"):
@@ -25,7 +32,7 @@ def _corpus():
 
 
 def test_every_flag_has_a_consumer_or_documented_compat_entry():
-    decl = REPO / "exastencils_tpu/config/knowledge.py"
+    decl = REPO / "exastencils_jax/config/knowledge.py"
     decl_text = decl.read_text()
     # strip dataclass field-declaration lines: a declaration is not a read
     decl_body = "\n".join(
@@ -51,3 +58,14 @@ def test_compat_allowlist_entries_are_real_flags():
     names = {f.name for f in dataclasses.fields(Knowledge)}
     stale = set(ACCEPTED_COMPAT_FLAGS) - names
     assert not stale, f"allowlist names without a declaration: {stale}"
+
+
+@pytest.mark.parametrize("name", RENAMED_OPTIONS)
+def test_retired_prefixed_option_fails_loudly(name):
+    """A .knowledge file that still sets an option under its old
+    prefixed name must not run on at the default silently."""
+    k = Knowledge()
+    with pytest.raises(KeyError, match=f"now {name!r}"):
+        parse_config_text(f"oldprefix_{name} = 1", k)
+    parse_config_text("someCodegenOnlyFlag = 1", k)
+    assert k._unused == {"someCodegenOnlyFlag": 1}

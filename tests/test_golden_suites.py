@@ -14,10 +14,10 @@ import os
 
 import pytest
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl.parser import parse_l4
 
 CASES = [
     ("BC", "2D_Polynomial"),
@@ -105,7 +105,7 @@ def _run_golden(suite, name, reference_root, tmp_path):
     L4Executable(prog, k, out=lines.append).run()
     # compare through the native golden comparator (the run_test.py
     # analog, EPS=1e-6 on numeric lines) ...
-    from exastencils_tpu import native
+    from exastencils_jax import native
 
     got = tmp_path / "out.txt"
     got.write_text("".join(l + "\n" for l in lines))

@@ -6,7 +6,7 @@ import os
 
 import pytest
 
-from exastencils_tpu import native
+from exastencils_jax import native
 
 
 @pytest.fixture(scope="module")
@@ -87,9 +87,9 @@ def test_check_results(lib, tmp_path, reference_root):
 
 
 def test_cli_check_mode(reference_root, capsys):
-    """`python -m exastencils_tpu ... --check golden.results` — the
+    """`python -m exastencils_jax ... --check golden.results` — the
     native differ's product role (reference Testing/run_test.py)."""
-    import exastencils_tpu.__main__ as cli
+    import exastencils_jax.__main__ as cli
 
     base = os.path.join(reference_root, "Testing", "Poisson",
                         "2D_FD_Poisson_fromL4")

@@ -16,10 +16,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # full-tier only (ci.sh quick gate skips)
 
-from exastencils_tpu.config import Knowledge, parse_config_file
-from exastencils_tpu.dsl import nodes as N
-from exastencils_tpu.dsl.driver import build_program
-from exastencils_tpu.dsl.interpreter import L4Executable
+from exastencils_jax.config import Knowledge, parse_config_file
+from exastencils_jax.dsl import nodes as N
+from exastencils_jax.dsl.driver import build_program
+from exastencils_jax.dsl.interpreter import L4Executable
 
 _RES_RE = re.compile(
     r"Residual at \S+ after (\d+) iterations is (\S+) , was initially (\S+)"

@@ -10,21 +10,21 @@ import pytest
 
 import jax.numpy as jnp
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.core.domain import unit_domain
-from exastencils_tpu.core.field import DirichletBC, Field
-from exastencils_tpu.core.grid import (
+from exastencils_jax.config import Knowledge
+from exastencils_jax.core.domain import unit_domain
+from exastencils_jax.core.field import DirichletBC, Field
+from exastencils_jax.core.grid import (
     NODE,
     level_grids,
     linearfct_node_positions,
 )
-from exastencils_tpu.core.stencil import (
+from exastencils_jax.core.stencil import (
     Stencil,
     node_prolongation,
     node_restriction,
 )
-from exastencils_tpu.parallel.backend import DenseBackend
-from exastencils_tpu.solver.synthesis import Equation, generate_solver
+from exastencils_jax.parallel.backend import DenseBackend
+from exastencils_jax.solver.synthesis import Equation, generate_solver
 
 
 def test_linearfct_positions_properties():
@@ -131,8 +131,8 @@ def test_stretched_poisson_second_order():
 def test_dsl_vf_gridwidth_guard():
     """DSL stencils whose coefficients read vf_gridWidth must refuse to
     silently use the mean width on a stretched grid."""
-    from exastencils_tpu.dsl.interpreter import L4Executable
-    from exastencils_tpu.dsl.parser import parse_l4
+    from exastencils_jax.dsl.interpreter import L4Executable
+    from exastencils_jax.dsl.parser import parse_l4
 
     src = """
 Domain dom< [0.0, 0.0] to [1.0, 1.0] >
@@ -150,7 +150,7 @@ Function Application {
 }
 """
     k = Knowledge(dimensionality=2, minLevel=2, maxLevel=4,
-                  grid_spacingModel="linearFct", grid_isUniform=False, tpu_shard_dsl=False).update()
+                  grid_spacingModel="linearFct", grid_isUniform=False, shard_dsl=False).update()
     ex = L4Executable(parse_l4(src), k, out=lambda s: None)
     with pytest.raises(NotImplementedError):
         ex.run("Application")

@@ -1,4 +1,4 @@
-"""Comm/compute overlap (`tpu_overlap_halo`) and k-wide halo aggregation
+"""Comm/compute overlap (`overlap_halo`) and k-wide halo aggregation
 (`comm_haloAggregationFactor`) on the sharded backend: both must leave
 the solver's numbers untouched — the reference's IR_SplitLoops /
 begin-finish exchange split and halo-aggregation knobs are pure
@@ -10,14 +10,17 @@ import pytest
 
 import jax
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.models.poisson import PoissonMGSolver
-from exastencils_tpu.parallel.mesh import make_domain_mesh
-from exastencils_tpu.parallel.topology import fragments_to_dense
+from exastencils_jax.config import Knowledge
+from exastencils_jax.models.poisson import PoissonMGSolver
+from exastencils_jax.parallel.mesh import make_domain_mesh
+from exastencils_jax.parallel.topology import fragments_to_dense
 
-pytestmark = [pytest.mark.slow, pytest.mark.skipif(
-    len(jax.devices()) < 4, reason="needs >= 4 virtual devices"
-)]
+pytestmark = pytest.mark.slow
+
+
+@pytest.fixture(autouse=True)
+def _needs_four_devices(four_devices):
+    pass
 
 P = (2, 2)
 
@@ -44,7 +47,7 @@ def _run_dense(**kw):
 
 def test_overlap_halo_bitwise_and_golden_parity():
     base_sol, base_lines, base_it = _run()
-    ov_sol, ov_lines, ov_it = _run(tpu_overlap_halo=True)
+    ov_sol, ov_lines, ov_it = _run(overlap_halo=True)
     assert ov_it == base_it
     assert ov_lines == base_lines
     # the split-exchange interior/shell formulation computes the very
@@ -65,7 +68,7 @@ def test_halo_aggregation_golden_parity():
 def test_overlap_plus_aggregation_compose():
     base_sol, base_lines, base_it = _run()
     both_sol, both_lines, both_it = _run(
-        tpu_overlap_halo=True, comm_haloAggregationFactor=4
+        overlap_halo=True, comm_haloAggregationFactor=4
     )
     assert both_it == base_it
     assert both_lines == base_lines

@@ -12,8 +12,8 @@ import pytest
 
 pytestmark = pytest.mark.slow  # full-tier only (ci.sh quick gate skips)
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.models.poisson import PoissonMGSolver
+from exastencils_jax.config import Knowledge
+from exastencils_jax.models.poisson import PoissonMGSolver
 
 
 def check_results(lines, expected_path, eps=1e-6):

@@ -7,15 +7,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.core.stencil import (
+from exastencils_jax.config import Knowledge
+from exastencils_jax.core.stencil import (
     BoundStencil,
     galerkin_product,
     node_prolongation,
     node_restriction,
 )
-from exastencils_tpu.ops.stencil_apply import apply_stencil, prolong, restrict
-from exastencils_tpu.solver.krylov import bicgstab, conjugate_residual, minres
+from exastencils_jax.ops.stencil_apply import apply_stencil, prolong, restrict
+from exastencils_jax.solver.krylov import bicgstab, conjugate_residual, minres
 
 
 # ---------------------------------------------------------------- Krylov
@@ -83,7 +83,7 @@ def test_bicgstab_restart():
 def test_f_cycle_runs_and_beats_v():
     """mg_cycle = 'F' must execute a genuine F-cycle: per-cycle residual
     trajectory differs from V and converges at least as fast."""
-    from exastencils_tpu.models.poisson import PoissonMGSolver
+    from exastencils_jax.models.poisson import PoissonMGSolver
 
     def run(cycle):
         k = Knowledge(dimensionality=2, minLevel=1, maxLevel=5,
@@ -103,7 +103,7 @@ def test_f_cycle_runs_and_beats_v():
 
 
 def test_unknown_cycle_type_rejected():
-    from exastencils_tpu.solver.mg import Multigrid
+    from exastencils_jax.solver.mg import Multigrid
 
     mg = Multigrid(levels={}, min_level=0, max_level=1,
                    coarse_solve=lambda s, r: s, cycle_type="Q")
@@ -230,8 +230,8 @@ Function Application ( ) : Unit {
 
 
 def test_stencil_from_expr_dsl():
-    from exastencils_tpu.dsl.interpreter import L4Executable
-    from exastencils_tpu.dsl.parser import parse_l4
+    from exastencils_jax.dsl.interpreter import L4Executable
+    from exastencils_jax.dsl.parser import parse_l4
 
     k = Knowledge(dimensionality=2, minLevel=0, maxLevel=3,
                   testing_enabled=True).update()
@@ -296,8 +296,8 @@ def test_seq_loop_does_not_bake_frame_vars():
     """A sequential (GS) sweep whose damping factor is a function
     argument must honor the *current* value on every call — the round-1
     jit cache baked the first call's value."""
-    from exastencils_tpu.dsl.interpreter import L4Executable
-    from exastencils_tpu.dsl.parser import parse_l4
+    from exastencils_jax.dsl.interpreter import L4Executable
+    from exastencils_jax.dsl.parser import parse_l4
 
     k = Knowledge(dimensionality=2, minLevel=0, maxLevel=3,
                   testing_enabled=True).update()
@@ -313,7 +313,7 @@ def test_seq_loop_does_not_bake_frame_vars():
 
 
 def test_block_comment_preserves_statements(tmp_path):
-    from exastencils_tpu.config.parser import parse_config_text
+    from exastencils_jax.config.parser import parse_config_text
 
     k = Knowledge()
     parse_config_text(
@@ -331,7 +331,7 @@ def test_block_comment_preserves_statements(tmp_path):
 def test_check_results_leading_whitespace(tmp_path):
     """C and Python comparators must agree on lines differing only in
     leading whitespace (both treat it as significant)."""
-    from exastencils_tpu import native
+    from exastencils_jax import native
 
     a = tmp_path / "a.txt"
     b = tmp_path / "b.txt"
@@ -344,7 +344,7 @@ def test_check_results_leading_whitespace(tmp_path):
 
 
 def test_rank_fragments_ndim_guard():
-    from exastencils_tpu import native
+    from exastencils_jax import native
 
     with pytest.raises(ValueError):
         native.rank_fragments([2, 2, 2, 2], [1, 1, 1, 1], 0)

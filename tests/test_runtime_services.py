@@ -9,17 +9,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.core.domain import unit_domain
-from exastencils_tpu.core.grid import NODE, level_grids
-from exastencils_tpu.runtime.fieldio import (
+from exastencils_jax.config import Knowledge
+from exastencils_jax.core.domain import unit_domain
+from exastencils_jax.core.grid import NODE, level_grids
+from exastencils_jax.runtime.fieldio import (
     CheckpointManager,
     print_field,
     read_field,
     write_field,
 )
-from exastencils_tpu.runtime.timers import TimerRegistry
-from exastencils_tpu.runtime.vtk import print_vtk, print_xdmf
+from exastencils_jax.runtime.timers import TimerRegistry
+from exastencils_jax.runtime.vtk import print_vtk, print_xdmf
 
 
 def test_timers_nested_and_stats(capsys):
@@ -100,8 +100,8 @@ def test_automatic_category_timing():
     IO occurrences with autoTime_<CATEGORY>[@level] timers (reference
     IR_AutomaticFunctionTiming; naming IR_RemoteSend.scala:96), printed
     by printAllTimers, without changing solver output."""
-    from exastencils_tpu.dsl.interpreter import L4Executable
-    from exastencils_tpu.dsl.parser import parse_l4
+    from exastencils_jax.dsl.interpreter import L4Executable
+    from exastencils_jax.dsl.parser import parse_l4
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     prog = parse_l4(os.path.join(repo, "examples", "poisson_2d.exa4"))

@@ -9,19 +9,22 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.models.poisson import PoissonMGSolver
-from exastencils_tpu.parallel.backend import ShardedBackend
-from exastencils_tpu.parallel.mesh import make_domain_mesh
-from exastencils_tpu.parallel.topology import (
+from exastencils_jax.config import Knowledge
+from exastencils_jax.models.poisson import PoissonMGSolver
+from exastencils_jax.parallel.backend import ShardedBackend
+from exastencils_jax.parallel.mesh import make_domain_mesh
+from exastencils_jax.parallel.topology import (
     ShardTopology,
     dense_to_fragments,
     fragments_to_dense,
 )
 
-pytestmark = [pytest.mark.slow, pytest.mark.skipif(
-    len(jax.devices()) < 4, reason="needs >= 4 virtual devices"
-)]
+pytestmark = pytest.mark.slow
+
+
+@pytest.fixture(autouse=True)
+def _needs_four_devices(four_devices):
+    pass
 
 
 def make_topo(P=(2, 2), ghost=1):

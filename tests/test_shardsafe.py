@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from exastencils_tpu.ops.shardsafe import embed_add, embed_block, plane_set
+from exastencils_jax.ops.shardsafe import embed_add, embed_block, plane_set
 
 
 @pytest.fixture(scope="module")

@@ -26,10 +26,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # full-tier only (ci.sh quick gate skips)
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl.parser import parse_l4
 
 # (name, max V-cycles to 1e-5 reduction, worst acceptable per-cycle
 # factor after the first cycle).  Reference quality at 576^3 for
@@ -51,9 +51,9 @@ def _run(base, shard=False, mesh_shape=(2, 2, 2)):
         setattr(k, f"domain_rect_numFragsPerBlock_{ax}", 1)
     k.domain_numBlocks = 1
     k.domain_numFragmentsPerBlock = 1
-    k.tpu_coarse_replicate_threshold = 4
+    k.coarse_replicate_threshold = 4
     if not shard:
-        k.tpu_shard_dsl = False
+        k.shard_dsl = False
     k.update()
     prog = parse_l4(base + ".exa4")
     mesh = None
@@ -103,7 +103,7 @@ def _run_full(base):
     576^3 finest) — reference-golden digits, nightly tier."""
     k = Knowledge()
     parse_config_file(base + ".knowledge", k)
-    k.tpu_coarse_replicate_threshold = 4
+    k.coarse_replicate_threshold = 4
     k.update()
     prog = parse_l4(base + ".exa4")
     lines = []

@@ -14,11 +14,11 @@ import jax.numpy as jnp
 
 pytestmark = pytest.mark.slow  # time-stepping run: full-tier only
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl import nodes as N
-from exastencils_tpu.dsl.driver import build_program
-from exastencils_tpu.dsl.interpreter import L4Executable
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl import nodes as N
+from exastencils_jax.dsl.driver import build_program
+from exastencils_jax.dsl.interpreter import L4Executable
 
 
 def test_swe_dam_break(reference_root):
@@ -28,7 +28,7 @@ def test_swe_dam_break(reference_root):
     k.maxLevel = 6
     k.minLevel = 6
     k.testing_enabled = True  # skip CImg interactive visualization
-    k.tpu_shard_dsl = False
+    k.shard_dsl = False
     k.update()
     prog = build_program(base + ".settings", k)
     for g in prog.globals_:

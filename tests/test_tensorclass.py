@@ -21,10 +21,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # full-tier only (ci.sh quick gate skips)
 
-from exastencils_tpu.config import Knowledge
-from exastencils_tpu.config.parser import parse_config_file
-from exastencils_tpu.dsl.interpreter import L4Executable
-from exastencils_tpu.dsl.parser import parse_l4
+from exastencils_jax.config import Knowledge
+from exastencils_jax.config.parser import parse_config_file
+from exastencils_jax.dsl.interpreter import L4Executable
+from exastencils_jax.dsl.parser import parse_l4
 
 
 def _run(exa_path):
